@@ -1,6 +1,6 @@
-// kmerdb_tpu native host runtime.
+// kmerdb_jax native host runtime.
 //
-// The TPU owns the contraction math (ops/intersect.py); this module owns
+// The device owns the contraction math (ops/gram.py); this module owns
 // the host-side hot loops around it, playing the role the reference's
 // C++ runtime plays around its SIMD kernels:
 //   * rolling k-mer extraction + minhash window   (cf. src/kmer_extract.h,
@@ -139,7 +139,7 @@ static inline uint64_t fmix64(uint64_t k) {
 }
 
 // MinHash hash; matches the construction documented in
-// kmerdb_tpu/ops/minhash.py (bit-parity with reference filter.h:96-115).
+// kmerdb_jax/ops/minhash.py (bit-parity with reference filter.h:96-115).
 static inline uint64_t minhash_hash(uint64_t kmer, uint64_t k_div_4) {
     uint64_t h = kmer * 0x87c37b91114253d5ULL;
     h = (h << 31) | (h >> 33);
@@ -1238,9 +1238,8 @@ void kmerdb_fill_incidence(int64_t n_el, const int32_t* rows,
 // along the PATTERN axis: bit (i & 7) of byte (i >> 3, s) records
 // pattern pids[i] containing sample s.  Packing cuts host->device
 // transfer and host zeroing 8x versus byte incidence; the pattern-axis
-// layout keeps the device's lane dimension at full width (the Pallas
-// kernel unpacks eight sublane rows per byte row, pallas_gram.py
-// _unpack_pk).
+// layout keeps the sample axis contiguous (the device step unpacks
+// eight incidence rows per byte row, ops/gram.py unpack_bits).
 void kmerdb_fill_incidence_bits(int64_t n, const int64_t* pids,
                                 const int64_t* offs, const uint32_t* sids,
                                 int64_t row_stride, uint8_t* out) {

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.ops import intersect
-from kmerdb_tpu.utils import native
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.ops import intersect
+from kmerdb_jax.utils import native
 
 
 def _random_db(rng, S, P, max_len=20, max_w=300_000):
@@ -39,37 +39,14 @@ def test_host_matches_device(seed, S, P):
         want[np.ix_(seg, seg)] += db.pattern_num_kmers[p]
     np.testing.assert_array_equal(host, want)
 
-    # device path (skip the host shortcut by calling the scan directly)
+    # device tier (the Gram engine on this backend)
     dev = _device_a2a(db)
     np.testing.assert_array_equal(dev, want)
 
 
-def _device_a2a(db, chunk=64, use_pallas=False):
-    import jax.numpy as jnp
-    offs = db.pattern_offsets
-    P = db.n_patterns
-    S = db.n_samples
-    el_pid = db.element_pattern_ids()
-    w = db.pattern_num_kmers
-    n_limbs = max(1, (int(w.max()).bit_length() + 7) // 8)
-    bounds = intersect._chunk_plan(offs, P, chunk, 1 << 20)
-    n_chunks = len(bounds) - 1
-    max_pc = max(bounds[c + 1] - bounds[c] for c in range(n_chunks))
-    from kmerdb_tpu.ops import pallas_gram
-    P_pad = intersect._round_up(max_pc, pallas_gram.KT) if use_pallas \
-        else max_pc
-    S_pad = intersect._round_up(S, pallas_gram.TILE) if use_pallas else S
-    B_all = np.zeros((n_chunks, P_pad, S_pad), dtype=np.int8)
-    w_all = np.zeros((n_chunks, P_pad), dtype=np.uint32)
-    for c in range(n_chunks):
-        p0, p1 = bounds[c], bounds[c + 1]
-        lo, hi = int(offs[p0]), int(offs[p1])
-        B_all[c][el_pid[lo:hi] - p0, db.pattern_sample_ids[lo:hi]] = 1
-        w_all[c, :p1 - p0] = w[p0:p1]
-    C = np.asarray(intersect._a2a_scan(
-        jnp.asarray(B_all), jnp.asarray(w_all),
-        n_limbs=n_limbs, use_pallas=use_pallas))
-    return C[:S, :S]
+def _device_a2a(db):
+    from kmerdb_jax.ops import device_a2a
+    return device_a2a.all2all_device(db)
 
 
 @pytest.mark.skipif(not native.available, reason="no native lib")

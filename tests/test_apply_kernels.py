@@ -11,7 +11,7 @@ similarity_calculator.cpp:737-794) is the oracle.
 import numpy as np
 import pytest
 
-from kmerdb_tpu.utils import native
+from kmerdb_jax.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available,
                                 reason="native runtime unavailable")

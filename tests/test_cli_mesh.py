@@ -11,8 +11,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from kmerdb_tpu.cli.main import main as cli
-from kmerdb_tpu.parallel import runtime
+from kmerdb_jax.cli.main import main as cli
+from kmerdb_jax.parallel import runtime
 
 
 @pytest.fixture(autouse=True)

@@ -7,7 +7,7 @@ import pathlib
 
 import pytest
 
-from kmerdb_tpu.cli.main import main
+from kmerdb_jax.cli.main import main
 
 REF = pathlib.Path("/root/reference")
 GOLD = REF / "test" / "protein"

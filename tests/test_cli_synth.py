@@ -10,7 +10,7 @@ import pathlib
 
 import pytest
 
-from kmerdb_tpu.cli.main import main
+from kmerdb_jax.cli.main import main
 
 REF = pathlib.Path("/root/reference")
 GOLD = REF / "test" / "synth"

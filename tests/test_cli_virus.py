@@ -9,7 +9,7 @@ import shutil
 
 import pytest
 
-from kmerdb_tpu.cli.main import main
+from kmerdb_jax.cli.main import main
 
 REF = pathlib.Path("/root/reference")
 GOLD = REF / "test" / "virus"

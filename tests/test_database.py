@@ -8,11 +8,11 @@ whole build->all2all path.
 import numpy as np
 import pytest
 
-from kmerdb_tpu.ops.alphabet import get_alphabet
-from kmerdb_tpu.io import fasta, ingest, dbfile
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.models import builder
-from kmerdb_tpu.ops import intersect
+from kmerdb_jax.ops.alphabet import get_alphabet
+from kmerdb_jax.io import fasta, ingest, dbfile
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.models import builder
+from kmerdb_jax.ops import intersect
 
 K = 21
 

@@ -8,9 +8,9 @@ decoder fallback, raw-section compatibility, and truncation errors.
 import numpy as np
 import pytest
 
-from kmerdb_tpu.io import dbfile
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.utils import native
+from kmerdb_jax.io import dbfile
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available,
                                 reason="needs the C++ runtime")

@@ -1,21 +1,21 @@
-"""Device-tier selection and fallback chain for the counting kernels.
+"""Device-tier selection for the counting kernels.
 
 The tier logic (ops/intersect.py) mirrors the reference's single CPU
-path with hardware dispatch instead: host C++ below the scatter-ops
-threshold, XLA limb matmuls as the default device tier, and the fused
-Pallas kernels behind KMERDB_A2A_PALLAS=1 with a logged fallback.
+path with hardware dispatch instead: host C++ below the cost-model
+threshold, the Gram engine (ops/gram.py) on the device above it.
 These tests pin the env-knob contract (KMERDB_A2A_DEVICE,
-KMERDB_N2A_DEVICE, KMERDB_A2A_PALLAS) and prove the Pallas tier's
-failure path lands on the XLA result: on the CPU test backend a forced
-on_tpu()=True makes pl.pallas_call reject compilation outright, which
-must degrade to the XLA tier with a warning, never an error.
+KMERDB_N2A_DEVICE, KMERDB_D2D_DEVICE) — a forced device tier runs the
+same XLA code on the CPU backend here — and that a device tier which
+fails raises instead of silently recomputing on the host.
 """
+
+import pytest
 
 import numpy as np
 
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.models import builder
-from kmerdb_tpu.ops import intersect
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.models import builder
+from kmerdb_jax.ops import intersect
 
 
 def _db(n_samples=6, n_kmers=400, seed=0):
@@ -50,18 +50,19 @@ def test_a2a_device_env_forces_xla_tier(monkeypatch):
     np.testing.assert_array_equal(intersect.all2all_counts(db), oracle)
 
 
-def test_a2a_pallas_tier_falls_back_on_compile_failure(monkeypatch, capsys):
-    """KMERDB_A2A_PALLAS=1 with a backend that cannot compile the kernel
-    (CPU posing as TPU) must warn and fall back to the XLA tier."""
-    from kmerdb_tpu.ops import pallas_gram
+def test_a2a_device_tier_failure_raises(monkeypatch):
+    """A forced device tier that fails must raise — never recompute on
+    the host behind a log line — and the CLI must exit non-zero."""
+    from kmerdb_jax.ops import device_a2a
     db = _db(seed=1)
-    oracle = _host_oracle(db)
+
+    def boom(db):
+        raise RuntimeError("device tier exploded")
+
     monkeypatch.setenv("KMERDB_A2A_DEVICE", "1")
-    monkeypatch.setenv("KMERDB_A2A_PALLAS", "1")
-    monkeypatch.setattr(pallas_gram, "on_tpu", lambda: True)
-    np.testing.assert_array_equal(intersect.all2all_counts(db), oracle)
-    err = capsys.readouterr().err
-    assert "pallas all2all tier" in err and "falling back" in err
+    monkeypatch.setattr(device_a2a, "all2all_device", boom)
+    with pytest.raises(RuntimeError, match="exploded"):
+        intersect.all2all_counts(db)
 
 
 def test_n2a_device_env(monkeypatch):
@@ -85,36 +86,28 @@ def test_d2d_device_env(monkeypatch):
     host = intersect.db2db_counts(dbA, dbB)
     assert host.max() > 0, "test corpus must actually intersect"
     monkeypatch.setenv("KMERDB_D2D_DEVICE", "1")
-    # off-TPU the Mosaic tier needs the explicit pallas opt-in (it
-    # runs in the interpreter here); without it the env falls back to
-    # the host path
-    monkeypatch.setenv("KMERDB_A2A_PALLAS", "1")
     np.testing.assert_array_equal(intersect.db2db_counts(dbA, dbB), host)
 
 
-def test_n2a_pallas_tier_falls_back(monkeypatch, capsys):
-    from kmerdb_tpu.ops import pallas_gram
+def test_n2a_device_tier_failure_raises(monkeypatch):
     db = _db(seed=4)
     rng = np.random.default_rng(5)
     queries = [np.unique(rng.integers(0, 1 << 36, size=150,
                                       dtype=np.uint64))
                for _ in range(3)]
-    host = intersect.many2all_counts(db, queries, use_device=False)
+
+    def boom(*a, **k):
+        raise RuntimeError("device tier exploded")
+
     monkeypatch.setenv("KMERDB_N2A_DEVICE", "1")
-    monkeypatch.setenv("KMERDB_A2A_PALLAS", "1")
-    monkeypatch.setattr(pallas_gram, "on_tpu", lambda: True)
-    np.testing.assert_array_equal(
-        intersect.many2all_counts(db, queries), host)
-    err = capsys.readouterr().err
-    assert "new2all tier" in err and "falling back" in err
+    monkeypatch.setattr(intersect, "m2a_prepare", boom)
+    with pytest.raises(RuntimeError, match="exploded"):
+        intersect.many2all_counts(db, queries)
 
 
-def test_n2a_mosaic_tier_runs_without_fallback(monkeypatch, capsys):
-    """The Mosaic new2all tier must actually RUN (interpret mode
-    off-TPU) for 1-limb inputs, where m2a_prepare emits uint8 hit
-    counts: the executable is lowered with H's real dtype, so no
-    'Argument types differ' fallback warning may appear (advisor
-    round-2 medium finding)."""
+def test_n2a_device_tier_u8_hits(monkeypatch):
+    """The new2all device tier runs on uint8 hit counts (the narrow
+    wire format m2a_prepare emits below 256) and equals the host."""
     db = _db(seed=7)
     rng = np.random.default_rng(8)
     queries = [np.unique(rng.integers(0, 1 << 36, size=150,
@@ -125,8 +118,5 @@ def test_n2a_mosaic_tier_runs_without_fallback(monkeypatch, capsys):
     assert n_limbs == 1 and H_all.dtype == np.uint8, \
         "corpus must exercise the u8 hit-count layout"
     monkeypatch.setenv("KMERDB_N2A_DEVICE", "1")
-    monkeypatch.setenv("KMERDB_A2A_PALLAS", "1")
     np.testing.assert_array_equal(
         intersect.many2all_counts(db, queries), host)
-    err = capsys.readouterr().err
-    assert "falling back" not in err

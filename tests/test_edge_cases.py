@@ -6,10 +6,10 @@ import pathlib
 
 import numpy as np
 
-from kmerdb_tpu.cli.main import main
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.models import builder
-from kmerdb_tpu.ops import intersect
+from kmerdb_jax.cli.main import main
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.models import builder
+from kmerdb_jax.ops import intersect
 
 
 def test_empty_sample_build_and_all2all(tmp_path):
@@ -126,7 +126,7 @@ def test_fraction_start_window(tmp_path):
     }.items():
         db = str(tmp_path / f"{tag}.db")
         assert main(["build", *args, str(lst), db]) == 0
-        from kmerdb_tpu.io import dbfile
+        from kmerdb_jax.io import dbfile
         cnt[tag] = dbfile.load_db(db, dbfile.EVERYTHING)
     k1 = set(cnt["w1"].kmers.tolist())
     k2 = set(cnt["w2"].kmers.tolist())
@@ -140,7 +140,7 @@ def test_mask_row_vector_matches_scalar():
     with the exact scalar path (same uint32 wraparound + inf/nan
     zero-denominator semantics)."""
     import numpy as np
-    from kmerdb_tpu.utils.filters import (AVAILABLE_METRICS, CombinedFilter,
+    from kmerdb_jax.utils.filters import (AVAILABLE_METRICS, CombinedFilter,
                                           KmerFilter, MetricFilter)
 
     rng = np.random.default_rng(3)
@@ -168,7 +168,7 @@ def test_distance_malformed_header_diagnosed(tmp_path):
     """A malformed similarity-matrix header must produce a diagnosed
     error exit, not a raw IndexError traceback (VERDICT r1 weak #5;
     reference streams the header, console_distance.cpp:63-96)."""
-    from kmerdb_tpu.cli.main import main
+    from kmerdb_jax.cli.main import main
     bad = tmp_path / "bad.csv"
     bad.write_text("garbage header line\nmore garbage\n")
     out = tmp_path / "out.csv"
@@ -187,7 +187,7 @@ def test_k11_aa11_diamond_build(tmp_path):
     segfault probe above — robustness is part of the rebuild's
     contract)."""
     import numpy as np
-    from kmerdb_tpu.cli.main import main
+    from kmerdb_jax.cli.main import main
     rng = np.random.default_rng(0)
     paths = []
     for i in range(4):

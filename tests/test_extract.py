@@ -7,9 +7,9 @@ these pin down the low-level semantics the goldens depend on.
 import numpy as np
 import pytest
 
-from kmerdb_tpu.ops.alphabet import get_alphabet, ALPHABET_NAMES
-from kmerdb_tpu.ops import extract, minhash
-from kmerdb_tpu.types import KMER_SENTINEL
+from kmerdb_jax.ops.alphabet import get_alphabet, ALPHABET_NAMES
+from kmerdb_jax.ops import extract, minhash
+from kmerdb_jax.types import KMER_SENTINEL
 
 
 def _np_kmers(seq: bytes, k: int, alph, fraction=1.0, start=0.0):

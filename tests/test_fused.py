@@ -8,10 +8,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.models import builder
-from kmerdb_tpu.ops import fused, intersect
-from kmerdb_tpu.cli.main import main as cli
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.models import builder
+from kmerdb_jax.ops import fused, intersect
+from kmerdb_jax.cli.main import main as cli
 
 
 def _rand_streams(rng, n, pool_size=4000, lo=100, hi=900):
@@ -45,7 +45,7 @@ def test_group_counts_match_pattern_path(n, seed):
 def test_group_counts_multi_partition(monkeypatch):
     """Partitioned merge (several k-mer ranges) must stitch into the
     same matrix as the single-partition result."""
-    from kmerdb_tpu.models import builder as b
+    from kmerdb_jax.models import builder as b
     rng = np.random.default_rng(3)
     streams = _rand_streams(rng, 16, pool_size=20_000, lo=2000, hi=4000)
     want = fused._host_group_counts(streams)
@@ -65,7 +65,7 @@ def test_empty_and_single():
 
 def test_device_worthwhile_gate():
     """Tiny jobs stay on host (must not pay backend init); huge
-    related collections go to device under TPU-ish constants."""
+    related collections go to device under accelerator constants."""
     assert not fused.device_worthwhile(8, 4000)
     os.environ["KMERDB_COST_DEV_FLOPS"] = "2e14"
     os.environ["KMERDB_COST_DEV_FIXED_S"] = "2"
@@ -118,8 +118,8 @@ def test_cli_from_fasta_matches_build_all2all(tmp_path, reference_test_dir):
 
 
 def test_cli_from_fasta_device_forced(tmp_path, reference_test_dir):
-    """The forced device tier (interpret mode off-TPU) produces the
-    same bytes through the CLI."""
+    """The forced device tier (the Gram engine on this backend)
+    produces the same bytes through the CLI."""
     p1 = reference_test_dir / "virus" / "seqs.part1.list"
     lines = p1.read_text().splitlines()[:10]
     lst = tmp_path / "list.txt"
@@ -264,7 +264,7 @@ def test_merge_groups_hashes_off_matches_on():
     """merge_groups(hashes=False) — the fused path's merge — must
     produce the same merged stream and group geometry as the hashed
     form (only h1/h2 become empty)."""
-    from kmerdb_tpu.utils import native
+    from kmerdb_jax.utils import native
     if not native.available:
         import pytest
         pytest.skip("native runtime unavailable")
@@ -354,7 +354,7 @@ def test_grid_rows_streamed_matches_cell_kernels():
         try:
             got = {}
             for i_row, cells in fused.grid_rows_streamed(
-                    lambda i: dbs[i], sizes, max_count=10**9):
+                    lambda i: dbs[i], sizes):
                 got[i_row] = cells
         finally:
             os.environ.pop("KMERDB_A2A_RESIDENT_MB", None)

@@ -16,7 +16,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from kmerdb_tpu.cli.main import main
+from kmerdb_jax.cli.main import main
 
 REF_BIN = "/tmp/refbuild/bin/kmer-db"
 
@@ -351,7 +351,7 @@ def test_kmc_input_cross_tool(tmp_path):
     """Synthesized KMC1 databases are read identically by both tools
     (the writer follows real KMC conventions: header_offset includes
     the version word, LUT carries the trailing sentinel)."""
-    from kmerdb_tpu.io import kmc
+    from kmerdb_jax.io import kmc
     rng = np.random.default_rng(61)
     lst = tmp_path / "kmc.list"
     entries = []

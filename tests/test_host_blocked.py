@@ -10,7 +10,7 @@ S % tile != 0 boundary.
 import numpy as np
 import pytest
 
-from kmerdb_tpu.utils import native
+from kmerdb_jax.utils import native
 
 
 @pytest.mark.skipif(not native.available, reason="native runtime only")

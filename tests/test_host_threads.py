@@ -8,7 +8,7 @@ import time
 import numpy as np
 import pytest
 
-from kmerdb_tpu.utils import native
+from kmerdb_jax.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available,
                                 reason="no native lib")

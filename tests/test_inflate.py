@@ -12,7 +12,7 @@ import os
 
 import pytest
 
-from kmerdb_tpu.io import fasta, inflate
+from kmerdb_jax.io import fasta, inflate
 
 
 def _gz(data: bytes, mtime=0) -> bytes:

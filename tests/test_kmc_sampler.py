@@ -11,10 +11,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from kmerdb_tpu.cli.main import main
-from kmerdb_tpu.io import kmc
-from kmerdb_tpu.ops.alphabet import get_alphabet
-from kmerdb_tpu.io import ingest
+from kmerdb_jax.cli.main import main
+from kmerdb_jax.io import kmc
+from kmerdb_jax.ops.alphabet import get_alphabet
+from kmerdb_jax.io import ingest
 
 REF = pathlib.Path("/root/reference")
 
@@ -36,7 +36,7 @@ def test_kmc1_roundtrip(tmp_path):
     assert got_k == k
     # loader output order is record order == sorted; the >=8-bit-prefix
     # shift is applied on load (prefix_bits = 36-32 = 4 < 8 for k=18)
-    from kmerdb_tpu.ops import extract
+    from kmerdb_jax.ops import extract
     shift, tail = extract.prefix_shift(k, 2)
     want = (kmers << np.uint64(shift)) | (kmers & np.uint64(tail))
     np.testing.assert_array_equal(np.sort(got), np.sort(want))
@@ -51,7 +51,7 @@ def test_kmc1_roundtrip_k32_and_minhash(tmp_path):
     got, got_k = kmc.load(base, fraction=1.0)
     np.testing.assert_array_equal(np.sort(got), kmers)
     # minhash filtering on load matches the host filter
-    from kmerdb_tpu.ops import minhash
+    from kmerdb_jax.ops import minhash
     got_f, _ = kmc.load(base, fraction=0.25)
     keep = minhash.accept_mask_np(kmers, k, 0.25, 0.0)
     np.testing.assert_array_equal(np.sort(got_f), kmers[keep])
@@ -69,7 +69,7 @@ def test_build_from_kmers_cli(tmp_path):
         fa.write_bytes(b">g%d\n" % i + seq + b"\n")
         kmers = ingest.extract_sample_kmers([seq], k, alph)
         # undo the >=8-bit-prefix shift: KMC stores plain packed k-mers
-        from kmerdb_tpu.ops import extract
+        from kmerdb_jax.ops import extract
         shift, tail = extract.prefix_shift(k, 2)
         plain = np.sort(np.unique(kmers >> np.uint64(shift)))
         kmc.write_kmc1(str(tmp_path / f"g{i}"), plain, k)

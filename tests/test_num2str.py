@@ -4,8 +4,8 @@ Double2PChar edge cases pinned against the algorithm's definition."""
 import numpy as np
 import pytest
 
-from kmerdb_tpu.utils import native
-from kmerdb_tpu.utils.num2str import (double2str, num2str_float,
+from kmerdb_jax.utils import native
+from kmerdb_jax.utils.num2str import (double2str, num2str_float,
                                       format_double_cpp, ints_row,
                                       ints_row_sparse)
 

@@ -10,8 +10,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from kmerdb_tpu.cli.main import main
-from kmerdb_tpu.utils import native
+from kmerdb_jax.cli.main import main
+from kmerdb_jax.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available,
                                 reason="needs the native path to diff "

@@ -6,13 +6,13 @@ must not depend on the parallel decomposition)."""
 import numpy as np
 import pytest
 
-from kmerdb_tpu.io import fasta, ingest
-from kmerdb_tpu.models.database import KmerPatternDb
-from kmerdb_tpu.models import builder
-from kmerdb_tpu.ops import intersect
-from kmerdb_tpu.ops.alphabet import get_alphabet
-from kmerdb_tpu.parallel.mesh import make_mesh
-from kmerdb_tpu.parallel.sharded import all2all_counts_sharded
+from kmerdb_jax.io import fasta, ingest
+from kmerdb_jax.models.database import KmerPatternDb
+from kmerdb_jax.models import builder
+from kmerdb_jax.ops import intersect
+from kmerdb_jax.ops.alphabet import get_alphabet
+from kmerdb_jax.parallel.mesh import make_mesh
+from kmerdb_jax.parallel.sharded import all2all_counts_sharded
 
 
 @pytest.fixture(scope="module")
@@ -40,8 +40,8 @@ def test_sharded_all2all_matches(synth_db, n_devices):
 
 def test_many2all_sharded_matches_single():
     """Query-sharded batched new2all == single-device host path."""
-    from kmerdb_tpu.parallel.sharded import many2all_counts_sharded
-    from kmerdb_tpu.utils import native
+    from kmerdb_jax.parallel.sharded import many2all_counts_sharded
+    from kmerdb_jax.utils import native
     if not native.available:
         pytest.skip("no native lib")
     mesh8 = make_mesh(8)
@@ -63,8 +63,8 @@ def test_many2all_sharded_matches_single():
 
 def test_db2db_sharded_matches_single():
     """Pattern-pair-sharded cross-DB counts == host cross_apply."""
-    from kmerdb_tpu.parallel.sharded import db2db_counts_sharded
-    from kmerdb_tpu.utils import native
+    from kmerdb_jax.parallel.sharded import db2db_counts_sharded
+    from kmerdb_jax.utils import native
     if not native.available:
         pytest.skip("no native lib")
     mesh8 = make_mesh(8)
@@ -95,7 +95,7 @@ def test_rows_sharded_streaming_matches(synth_db, n_devices, stripe_rows):
     composition) == single-device matrix path, rows emitted in order,
     per-device memory one stripe."""
     import jax
-    from kmerdb_tpu.parallel.sharded import all2all_rows_sharded
+    from kmerdb_jax.parallel.sharded import all2all_rows_sharded
     if len(jax.devices()) < n_devices:
         pytest.skip("not enough devices")
     mesh = make_mesh(n_devices)
@@ -116,7 +116,7 @@ def test_rows_sharded_streaming_matches(synth_db, n_devices, stripe_rows):
 
 def test_rows_sharded_heavy_weights(reference_test_dir):
     """Multi-limb (heavy pattern) stripes through the sharded stream."""
-    from kmerdb_tpu.parallel.sharded import all2all_rows_sharded
+    from kmerdb_jax.parallel.sharded import all2all_rows_sharded
     rng = np.random.default_rng(41)
     pool = rng.integers(0, 1 << 40, size=600, dtype=np.uint64)
     # few samples + many shared k-mers -> pattern weights > 255

@@ -5,8 +5,8 @@ Usage: python tools/multihost_worker.py <proc_id> <n_procs> \
            <devices_per_proc> <port>
 
 Each process owns `devices_per_proc` virtual CPU devices; the
-processes join one jax.distributed runtime (the DCN analogue of a
-multi-host TPU pod) and run the FULL pipeline over the GLOBAL mesh —
+processes join one jax.distributed runtime (the analogue of several
+hosts) and run the FULL pipeline over the GLOBAL mesh —
 the same five stages as the single-process dryrun
 (__graft_entry__.dryrun_multichip):
 
@@ -45,17 +45,17 @@ def main():
     jax.config.update("jax_num_cpu_devices", ndev)
 
     import numpy as np
-    from kmerdb_tpu.parallel.mesh import init_distributed
+    from kmerdb_jax.parallel.mesh import init_distributed
     assert init_distributed(), "KMERDB_COORD must select multi-process"
     assert jax.process_count() == nproc
 
     from jax.sharding import Mesh
-    from kmerdb_tpu.models.database import KmerPatternDb
-    from kmerdb_tpu.models import builder
-    from kmerdb_tpu.ops import extract, intersect
-    from kmerdb_tpu.ops.alphabet import get_alphabet
-    from kmerdb_tpu.types import KMER_SENTINEL
-    from kmerdb_tpu.parallel import sharded
+    from kmerdb_jax.models.database import KmerPatternDb
+    from kmerdb_jax.models import builder
+    from kmerdb_jax.ops import extract, intersect
+    from kmerdb_jax.ops.alphabet import get_alphabet
+    from kmerdb_jax.types import KMER_SENTINEL
+    from kmerdb_jax.parallel import sharded
 
     D = nproc * ndev
     mesh = Mesh(np.array(jax.devices()).reshape(D), ("shard",))
